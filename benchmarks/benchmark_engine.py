@@ -5,6 +5,8 @@ with a Lumogen-like dye, python tracer vs compiled engine at several
 thread counts). Here the comparison is oracle rays/s vs device photon
 throughput at several bundle sizes, plus recorder-only mode.
 
+Needs a GPU for the engine rates.
+
 Run:  python benchmarks/benchmark_engine.py [--quick]
 """
 import argparse
@@ -15,7 +17,7 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from bench import build_scene  # noqa: E402
+from bench import build_scene, gpu_device  # noqa: E402
 
 
 def bench_oracle(scene, n):
@@ -54,6 +56,7 @@ def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--quick", action="store_true")
     args = parser.parse_args()
+    print(f"device: {gpu_device()}")
 
     scene = build_scene()
     n_oracle = 200 if args.quick else 1000

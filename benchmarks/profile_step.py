@@ -1,12 +1,15 @@
-"""Microbenchmark: where does a tracer step spend its time on the real chip?
+"""Microbenchmark: where does a tracer step spend its time on the GPU?
 
-Times, at the benchmark wavefront width (2^19 lanes):
+Times, at the default wavefront width (engine.api.AUTO_LANES):
   emit      device emission of a full wavefront (regen refill cost bound)
   draw8     the 8 per-step threefry uniforms
   physics   one full physics_core step via the fast XLA step_fn
   loopstep  amortised per-iteration cost of the real regen while_loop
 
-Run on TPU: python benchmarks/profile_step.py [n_photons]
+Needs a GPU.
+
+Run:  python benchmarks/profile_step.py [n_photons]
+      python benchmarks/profile_step.py trace   # jax.profiler trace to profiles/
 """
 import sys
 import time
@@ -16,10 +19,11 @@ import jax.numpy as jnp
 import numpy as np
 
 sys.path.insert(0, ".")
-from bench import build_scene  # noqa: E402
+from bench import build_scene, gpu_device  # noqa: E402
 
 from pvtrace_tpu.engine import compiler as comp  # noqa: E402
 from pvtrace_tpu.engine import tracer as tr  # noqa: E402
+from pvtrace_tpu.engine.api import AUTO_LANES  # noqa: E402
 
 
 def timeit(fn, *args, reps=20):
@@ -35,8 +39,9 @@ def timeit(fn, *args, reps=20):
 
 
 def main():
+    print(f"device: {gpu_device()}")
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 8_000_000
-    lanes = 1 << 19
+    lanes = AUTO_LANES
     scene = build_scene()
     compiled = comp.compile_scene(scene)
     cfg = tr.make_config(compiled, n, record_every=0)
@@ -78,9 +83,10 @@ def main():
     print(f"throughput {n/t_loop/1e6:.2f} M photons/s")
 
 
-def capture_trace(outdir="/tmp/pvtrace_profile"):
+def capture_trace(outdir="profiles"):
+    print(f"device: {gpu_device()}")
     n = 8_000_000
-    lanes = 1 << 19
+    lanes = AUTO_LANES
     scene = build_scene()
     compiled = comp.compile_scene(scene)
     cfg = tr.make_config(compiled, n, record_every=0)

@@ -1,4 +1,4 @@
-"""10^8-photon FULLSPECTRUM validation on TPU (BASELINE north star).
+"""10^8-photon FULLSPECTRUM validation on the GPU (BASELINE north star).
 
 Reproduces the cross-code comparison (Bose thesis sample, Fluro Red,
 4.8 x 1.8 x 0.260 cm) at 10^8 photons — enough statistics to pin fate
@@ -7,7 +7,7 @@ to the published values from ICL Raytrace / ICL 3D Flux / ECN Raytrace
 (reference examples/Validation.ipynb "The Sample" cell; BASELINE.md).
 
 The reference's Python tracer needs ~20 min for 4,000 photons; the
-device engine traces 10^8 in seconds.
+device engine traces 10^8 in one call. The engine run needs a GPU.
 
 Usage:
     python benchmarks/validate_flux.py [N]          # engine run
@@ -136,7 +136,8 @@ def oracle_run(n=1_000_000, workers=None):
     share = [(1000 + i, n // workers) for i in range(workers)]
     share[-1] = (share[-1][0], n - (n // workers) * (workers - 1))
     tic = time.perf_counter()
-    with multiprocessing.Pool(workers) as pool:
+    # Spawned workers: none inherits this process's device context.
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
         parts = pool.map(_oracle_worker, share)
     dt = time.perf_counter() - tic
     totals = {}
@@ -155,6 +156,9 @@ def oracle_run(n=1_000_000, workers=None):
 
 
 def main(n=100_000_000):
+    from bench import gpu_device
+
+    print(f"device: {gpu_device()}")
     scene = build()
     engine.simulate(scene, 2_000_000, seed=1, record_every=0,
                     emit_method="redshift", dtype=np.float32)

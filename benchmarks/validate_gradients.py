@@ -11,7 +11,7 @@ Lumogen-like dye qy 0.9 + 0.3/cm background, cone light):
 3. d(optical efficiency) / d log(dye scale) via LSC.gradient() with
    edge solar cells, vs CRN central FD of the collected/incident ratio.
 
-Run on the TPU:  python benchmarks/validate_gradients.py [N]
+Run on a GPU:  python benchmarks/validate_gradients.py [N]
 Writes a markdown table to stdout (paste into docs/VALIDATION.md).
 """
 import sys
@@ -85,6 +85,9 @@ def main():
     from pvtrace_tpu.diff.transport import fate_gradients
     from pvtrace_tpu.light.event import Event
 
+    from bench import gpu_device
+
+    print(f"device: {gpu_device()}")
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 100_000_000
     seed = 7
     delta = 0.05

@@ -5,7 +5,7 @@
    over rays with the per-ray oracle tracer.
 2. `engine.simulate`: the device wavefront — the whole bundle advances
    in lockstep on the accelerator, no processes needed. This is the
-   TPU-native way to run many rays and is orders of magnitude faster.
+   way to run many rays and is orders of magnitude faster.
 """
 import time
 

@@ -145,8 +145,8 @@ def main():
 
     import time
 
-    # Warm with a >= 2^19-photon budget so the compiled program (lane
-    # width = min(n, 2^19)) is the same one the timed run uses.
+    # Warm with a budget above the default lane width so the compiled
+    # program (lane width = min(n, AUTO_LANES)) is the timed run's.
     engine.simulate(scene, min(n, 2_000_000), seed=1, record_every=0)
     tic = time.perf_counter()
     result = engine.simulate(scene, n, seed=7, record_every=0)

@@ -4,7 +4,7 @@ score-function gradient (the straight-line surrogate in
 `diff.transport.make_training_step` is biased once the n=1.5 surface
 bends rays; this demo uses the full estimator instead).
 
-Run (TPU or CPU):  python examples/optimize_lsc.py
+Run (GPU or CPU):  python examples/optimize_lsc.py
 """
 import functools
 

@@ -1,4 +1,4 @@
-"""pvtrace_tpu — TPU-native Monte Carlo photon transport.
+"""pvtrace_tpu — Monte Carlo photon transport on an accelerator.
 
 A from-scratch JAX/XLA re-design of the capabilities of pvtrace
 (https://github.com/danieljfarrell/pvtrace): statistical photon path

@@ -338,7 +338,7 @@ def _add_query_args(sub):
 def build_parser():
     parser = argparse.ArgumentParser(
         prog="pvtrace-tpu-cli",
-        description="TPU-native Monte Carlo photon transport CLI",
+        description="Monte Carlo photon transport CLI",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 

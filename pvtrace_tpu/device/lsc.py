@@ -9,14 +9,13 @@ Execution differs: the reference traces LSC scenes with the per-ray
 Python tracer (~1.8k rays/s) because its custom surface delegates cannot
 compile. Here the mirror/solar-cell surfaces are expressed as declarative
 facet overrides (``FacetOverrideSurfaceDelegate``), so LSC scenes lower
-to device tables and run on the TPU wavefront engine; the oracle tracer
+to device tables and run on the wavefront engine; the oracle tracer
 remains available via ``simulate(..., engine="python")``.
 """
 import functools
 from dataclasses import asdict
 
 import numpy as np
-import pandas as pd
 
 from pvtrace_tpu.data import lumogen_f_red_305
 from pvtrace_tpu.geometry.box import Box
@@ -502,6 +501,8 @@ class LSC(object):
     # -- analysis ------------------------------------------------------
 
     def _make_dataframe(self):
+        import pandas as pd
+
         rows = []
         for ray, event in self._store["entrance_rays"]:
             rep = asdict(ray)
@@ -541,6 +542,8 @@ class LSC(object):
         return df
 
     def _make_counts(self, df):
+        import pandas as pd
+
         if self._counts is not None:
             return self._counts
         all_components = self.component_names()
@@ -574,6 +577,8 @@ class LSC(object):
         return counts
 
     def spectrum(self, facets=set(), kind="last", source="all", events=None):
+        import pandas as pd
+
         if self._df is None:
             raise ValueError("Run a simulation before calling this method.")
         df = self._df
@@ -660,6 +665,8 @@ class LSC(object):
         Ratios are NaN when their denominator is zero (no incident or
         no radiated photons) instead of raising.
         """
+        import pandas as pd
+
         counts = self._make_counts(self._df)
         cells = self._solar_cell_surfaces
 

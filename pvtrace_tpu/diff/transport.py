@@ -14,6 +14,8 @@ differentiable estimators of transport observables for optimisation
   gradients reduced with `psum` (SURVEY §2.3: the scene "model" is
   tiny and replicated; only the photon axis is distributed).
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -219,8 +221,12 @@ def _chord_fn(compiled, node):
     gp = np.asarray(compiled.geom_params[node], dtype=np.float64)
 
     def chord(pos, direction):
-        o = pos @ R[:3, :3].T + R[:3, 3]
-        d = direction @ R[:3, :3].T
+        # HIGHEST: a float32 product may otherwise run in TF32 on GPUs.
+        rot = functools.partial(
+            jnp.matmul, precision=jax.lax.Precision.HIGHEST
+        )
+        o = rot(pos, R[:3, :3].T) + R[:3, 3]
+        d = rot(direction, R[:3, :3].T)
         if gtype == comp.GEOM_BOX:
             half = jnp.asarray(0.5 * gp[:3], jnp.float32)
             safe = jnp.where(jnp.abs(d) < 1e-20, 1e-20, d)

@@ -1,7 +1,8 @@
 """Compile a scene into flat tables for the device wavefront tracer.
 
 Counterpart of the reference's ``engine/compiler.py`` (which lowers to
-numpy tables for a Cython kernel) — re-designed for TPU execution:
+numpy tables for a Cython kernel) — re-designed for wavefront execution
+on an accelerator:
 
 * Spectra and emission CDFs are resampled onto **shared uniform grids**
   so device lookups are O(1) gather + lerp instead of binary search
@@ -220,8 +221,8 @@ class CompiledScene:
                 self.node_alpha[i] += self.comp_coef[self.node_comp_idx[i, k]]
 
         # -- packed spectral table -------------------------------------
-        # TPU gathers are expensive; the hot loop does exactly ONE wide
-        # gather for all per-step spectral data. Layout per node row
+        # The hot loop does exactly ONE wide gather for all per-step
+        # spectral data. Layout per node row
         # (grid index i), slot pairs (value at i, value at i+1):
         #   slots 0..K-1:              cumulative attenuation over the
         #                              node's components (slot K-1 = alpha)
@@ -291,10 +292,9 @@ class CompiledScene:
         self._compile_lights(scene)
 
         # -- Chebyshev spectral surrogates -------------------------------
-        # Profiled on v5e, the two per-step spectral gathers plus their
-        # tiled-to-linear column relayouts are ~85% of a tracer step
-        # (gathers run near the hardware's ~2 ns/row limit; the physics
-        # itself is cheap VPU work). Smooth spectra — every built-in dye
+        # The two per-step spectral gathers plus their column extraction
+        # dominated the step on the engine's first accelerator (ROADMAP
+        # Speed 5 measures them on the GPU). Smooth spectra — every built-in dye
         # and most measured ones — admit a Chebyshev fit whose Clenshaw
         # evaluation is a few hundred fused FMAs per lane and needs no
         # gather at all. Fits are accepted only when the max error on
@@ -385,7 +385,8 @@ class CompiledScene:
     CHEB_LOG_REL_TOL = 2.5e-3
     # Adaptive piecewise fallback: per-segment degree and the segment
     # budget. Evaluation cost is ~PW_DEG FMAs per segment, but every
-    # segment's Clenshaw chain is independent (ILP-friendly VPU work),
+    # segment's Clenshaw chain is independent (instruction-level
+    # parallelism),
     # unlike one long serial chain of a high global degree.
     PW_DEG = 8
     PW_MAX_SEGMENTS = 48

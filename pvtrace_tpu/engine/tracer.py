@@ -1,16 +1,16 @@
 """The device wavefront tracer — the heart of the framework.
 
-TPU-native re-design of the reference's per-ray native kernel
+Wavefront re-design of the reference's per-ray native kernel
 (``engine/_kernel.pyx:603-897``): the whole photon bundle advances in
 lockstep as structure-of-arrays state inside a ``lax.while_loop``; every
 branch of the per-ray event loop is a masked ``where``; per-ray xoshiro
 streams become per-photon ``jax.random.fold_in`` keys (bitwise
 reproducible regardless of batch sharding).
 
-Performance-critical design decisions (measured on v5e):
+Design decisions (taken for the accelerator the engine was first
+written for; ROADMAP Speed 4-5 re-measures them on the GPU):
 
-* **Gathers are the enemy** (~6-14 ms per 1M-photon gather vs ~0.1 ms
-  per elementwise op). The scene structure (node count, geometry types,
+* **Few gathers.** The scene structure (node count, geometry types,
   component wiring, surfaces, facet overrides) is *static*, so the step
   is code-generated per scene: geometry params, rigid transforms and
   material scalars are baked in as compile-time constants, and all
@@ -25,8 +25,8 @@ Performance-critical design decisions (measured on v5e):
 * Trig-free optics: Fresnel from cos(theta), phase sampling via
   (sin, cos) identities — no arccos/arcsin in the hot path. The
   incidence angle is materialised only when recorders need it.
-* State is flat [B] component arrays (never [B, 3] / [B, N, k]): minor
-  dimensions of 3 waste 125/128 lanes of a TPU tile.
+* State is flat [B] component arrays (never [B, 3] / [B, N, k]), so
+  every elementwise op runs on full-width vectors.
 
 Event semantics replicate ``photon_tracer.step_forward`` event-for-event:
 container = unique-forward-hit node nearest the origin, EXIT on hitting
@@ -55,10 +55,10 @@ _ABLATE = os.environ.get("PVTRACE_TPU_ABLATE", "")
 # Flat counter-based RNG.
 #
 # jax.random's vmapped per-lane keys store state as [B, 2] and draws as
-# [B, 8] — minor dimensions of 2/8 waste most of each (8, 128) TPU tile
-# and measured ~1/3 of the whole step. The same threefry2x32 generator
-# (bit-exact, verified against jax._src.prng.threefry_2x32) on flat [B]
-# word arrays removes that waste. Streams are labelled by counters:
+# [B, 8]; the same threefry2x32 generator (bit-exact, verified against
+# jax._src.prng.threefry_2x32) runs here on flat [B] word arrays, which
+# keeps the RNG in the same full-width elementwise fusions as the rest
+# of the step. Streams are labelled by counters:
 #
 #   photon key  (pk0, pk1) = threefry(seed, pid, 0)
 #   step draws  u[2j], u[2j+1] = threefry(pk, count, j), j = 0..3
@@ -379,10 +379,9 @@ def _mesh_nearest_two(mesh_consts, o, d, eps):
     inf = jnp.full_like(ox, _INF)
     # Small meshes unroll with scalar program constants: a traced
     # fori_loop keeps XLA from fusing the per-triangle bodies (each trip
-    # gathers its constants dynamically) and measured ~45x slower per
-    # step than the box path at T=24. Unrolled, the 24-triangle hex
-    # plate runs at wavefront speed; big meshes keep the O(1)-program
-    # fori_loop.
+    # gathers its constants dynamically). Big meshes keep the
+    # O(1)-program fori_loop. The threshold is re-measured on the GPU
+    # under ROADMAP Speed 6.
     unroll = T <= 96
     if not unroll:
         V0 = jnp.asarray(V0h)
@@ -491,10 +490,8 @@ def _local_normal_static(gtype, params, p):
 
 
 # Event-log layout: two packed arrays so each _record call costs ONE
-# int scatter + ONE float scatter instead of 12 per-field scatters
-# (scatters are latency-bound on TPU; the log path only runs in
-# validation/debug runs with record_every > 0, but those runs were
-# paying 12x the necessary scatter latency per event).
+# int scatter + ONE float scatter instead of 12 per-field scatters (the
+# log path only runs in validation/debug runs with record_every > 0).
 _LOG_INTS = ("kind", "hit", "container", "adjacent", "component", "source")
 _LOG_VECS = ("position", "direction", "normal")  # floats[..., 0:9]
 _LOG_SCALARS = ("wavelength", "travelled", "duration")  # floats[..., 9:12]
@@ -591,7 +588,7 @@ def _tally(tallies, compiled, cfg, sel, tnode, have_normal, wnormal3, lpos3,
     recorders (kernel tally, _kernel.pyx:501-556).
 
     Vectorized over the recorder axis: one [B, R] match matrix, one-pass
-    axis reductions for counts, and MXU matmuls for the moment/score
+    axis reductions for counts, and matmuls for the moment/score
     sums — program size and step cost stay flat as R grows to the
     256-recorder ceiling (the reference's cap, engine/compiler.py:23)
     instead of emitting R unrolled reduce+scatter chains. Histogram
@@ -631,8 +628,9 @@ def _tally(tallies, compiled, cfg, sel, tnode, have_normal, wnormal3, lpos3,
         ],
         axis=-1,
     )
-    # Full-precision matmuls: the TPU's default f32 matmul precision is
-    # reduced (bf16 passes) and would corrupt wavelength^2-scale moments.
+    # Full-precision matmuls: by default a float32 matmul may run in
+    # TF32 on a GPU (about three decimal digits), which would corrupt
+    # wavelength^2-scale moments.
     sums = tallies["sums"] + jnp.matmul(
         newf.T, props8, precision=jax.lax.Precision.HIGHEST
     )
@@ -646,11 +644,10 @@ def _tally(tallies, compiled, cfg, sel, tnode, have_normal, wnormal3, lpos3,
         0: wavelength, 1: angle, 2: duration, 3: travelled,
         4: lpos3[0], 5: lpos3[1], 6: lpos3[2],
     }
-    # Histogram binning WITHOUT scatters. A [B]-wide scatter-add costs
-    # ~16 ns/element on TPU (measured: 4 single-histogram recorders
-    # added 33 ms/step at 2^19 lanes, linear in the spec count, and the
-    # runtime fell over near the 256-recorder ceiling). Instead each
-    # spec builds a one-hot bin matrix and reduces it on the MXU:
+    # Histogram binning WITHOUT scatters (a [B]-wide scatter-add per
+    # spec was the slow path on the engine's first accelerator; ROADMAP
+    # Speed 4 compares the two on the GPU). Each spec builds a one-hot
+    # bin matrix and reduces it with a matmul:
     #   1D:      counts[k]    = sum_b mask[b] * onehot_a[b, k]
     #   heatmap: counts[j, k] = sum_b (mask*onehot_a)[b, j] * onehot_b[b, k]
     # and the result lands in the flat bins array via a STATIC slice
@@ -661,9 +658,8 @@ def _tally(tallies, compiled, cfg, sel, tnode, have_normal, wnormal3, lpos3,
     # facet recorders all histogramming wavelength on [400, 800, 50])
     # are BATCHED: one unmasked one-hot build, the per-spec masks pulled
     # from the [B, R] `new` matrix already computed above, and ONE
-    # [G, B] x [B, n] MXU contraction for the whole group instead of G
-    # skinny [1, B] matmuls (measured 8.6 -> 25 M photons/s at 128
-    # recorders, 4.6 -> 16 M at 256). The recorder mask rides the
+    # [G, B] x [B, n] contraction for the whole group instead of G
+    # skinny [1, B] matmuls. The recorder mask rides the
     # contraction, so the one-hot only folds out-of-range values to a
     # dropped column.
     def onehot(values, lo, hi, n_bins):
@@ -1504,13 +1500,8 @@ def _run(compiled, cfg: TraceConfig, tables, photon_ids, keys, positions,
 
     # -- interpolation callbacks ----------------------------------------
 
-    # Gather formulation notes (all measured on v5e, 512k lanes):
-    # the wide [Bl, 2W] row gather + per-column slices used here wins.
-    # The profile attributes ~half the step to the column extraction
-    # (each slice of a T(8,128)-tiled result relayouts to T(1024)), but
-    # every alternative measured WORSE: per-slot 1-D gathers 4x slower
-    # (each pays its own latency-bound pass), transposed-table
-    # jnp.take(..., axis=1) ~12% slower (gather + transpose).
+    # Gather path: one wide [Bl, 2W] row gather + per-column slices
+    # (rather than one 1-D gather per slot).
 
     def spec_slots_gather(container, i0, frac):
         row = jnp.clip(container, 0, N - 1) * L + i0
@@ -1528,9 +1519,9 @@ def _run(compiled, cfg: TraceConfig, tables, photon_ids, keys, positions,
         prow = icdf_pairs[lumidx * M + j0]  # [Bl, 2]
         return prow[:, 0] + gfrac * (prow[:, 1] - prow[:, 0])
 
-    # Chebyshev surrogates (compiler-fitted, gather-free): measured 8x
-    # cheaper than the row gather + column extraction on v5e — the
-    # lookup drops from ~85% of a step to noise. Enabled whenever the
+    # Chebyshev surrogates (compiler-fitted, gather-free), chosen over
+    # the row gather on the engine's first accelerator; ROADMAP Speed 5
+    # measures both on the GPU. Enabled whenever the
     # compiler's fits met tolerance; PVTRACE_TPU_NO_CHEB forces the
     # exact table-gather path (note the tracer cache keys on the scene
     # digest + config, so flip it before the first trace of a scene).
@@ -2161,11 +2152,10 @@ def _run(compiled, cfg: TraceConfig, tables, photon_ids, keys, positions,
     else:
         loop_body = body
 
-    # Two physics steps per while iteration: the while_loop's fixed
-    # per-iteration overhead (condition reduction + buffer plumbing)
-    # measured ~12% of the whole run at 2^19 lanes; composing the body
-    # twice recovers it (136 -> 154 M photons/s) and deeper unrolls add
-    # nothing. Safe by construction: every state update is masked by
+    # Two physics steps per while iteration amortise the while_loop's
+    # fixed per-iteration overhead (condition reduction + buffer
+    # plumbing); ROADMAP Speed 3 re-sweeps the depth on the GPU. Safe
+    # by construction: every state update is masked by
     # `alive`, so a step on an all-dead wavefront is a no-op, and
     # regeneration runs inside the body so refills happen between the
     # two halves exactly as they would between iterations.
@@ -2182,4 +2172,8 @@ def _run(compiled, cfg: TraceConfig, tables, photon_ids, keys, positions,
         ).astype(jnp.int32)
     else:
         counts = jnp.zeros(1, jnp.int32)
-    return state["tallies"], state["log"], counts, state["step"]
+    # The per-lane [B, R] `seen` mask is loop state, not a tally: only
+    # the additive accumulators leave the loop (and get all-reduced on
+    # a mesh).
+    tallies = {k: v for k, v in state["tallies"].items() if k != "seen"}
+    return tallies, state["log"], counts, state["step"]

@@ -113,7 +113,7 @@ class FacetOverrideSurfaceDelegate(FresnelSurfaceDelegate):
     This generalises the custom delegates the reference LSC device uses
     (device/lsc.py:22-86 OptionalMirrorAndSolarCell / AirGapMirror) into
     a declarative form the compiler can lower to device tables, so LSC
-    scenes run on the TPU fast path instead of falling back to the
+    scenes run on the device engine instead of falling back to the
     per-ray tracer.
     """
 

@@ -34,8 +34,8 @@ def init_distributed(coordinator_address=None, num_processes=None,
 
     Call once per process before any other JAX API. With no arguments,
     values come from the standard environment (``JAX_COORDINATOR_ADDRESS``,
-    ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``) or the cluster plugin
-    (TPU pod metadata); single-process runs (no coordinator anywhere)
+    ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``) or JAX's cluster
+    detection; single-process runs (no coordinator anywhere)
     are a no-op, so library code can call this unconditionally.
 
     Blocks until all ``num_processes`` processes have joined.

@@ -1,15 +1,15 @@
-"""Multi-chip photon-batch sharding.
+"""Multi-device photon-batch sharding.
 
 The reference parallelises with one OS process per CPU worker and a
-per-worker reseed (``scene/scene.py:256-313``). The TPU-native design
-shards the *photon axis* over every chip of a mesh with ``shard_map``:
+per-worker reseed (``scene/scene.py:256-313``). Here the *photon axis*
+is sharded over every device of a 1-D mesh with ``shard_map``:
 
 * scene tables are tiny (<100 kB) and replicated to every device;
-* each device traces its photon slice with the same wavefront kernel;
-* EVERY tally accumulator — recorder histograms / counters / moment
+* each device traces its photon slice with the same wavefront program;
+* every tally accumulator — recorder histograms / counters / moment
   sums, and with ``cfg.score`` the fate/recorder score-function
-  gradient sums — is reduced with ``psum`` over ICI, the analogue of
-  the reference's per-thread accumulator merge
+  gradient sums — is reduced with ``psum`` across the devices, the
+  analogue of the reference's per-thread accumulator merge
   (``_kernel.pyx:1019-1032``) plus the gradient all-reduce SURVEY §2.3
   mandates for the differentiable path;
 * per-photon RNG keys are folded from the *global* photon index, so
@@ -29,6 +29,7 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
 from pvtrace_tpu.engine import tracer as tracer_module
+from pvtrace_tpu.engine.api import AUTO_LANES, _enable_persistent_cache
 from pvtrace_tpu.parallel import distributed
 
 #: Compiled sharded tracers, keyed on (path, scene digest, cfg, mesh,
@@ -46,12 +47,12 @@ def make_photon_mesh(devices=None, axis_name="photons"):
 
 
 def _psum_all(tallies, axis_name):
-    """psum-reduce EVERY tally accumulator across the mesh.
+    """psum-reduce every tally accumulator across the mesh.
 
-    All tracer tallies are additive (integer counters, float moment
-    sums, and — when ``cfg.score`` — the ``fate_scores``/``rec_scores``
-    score-function gradient accumulators), so the reduction is a
-    uniform tree_map; nothing is dropped.
+    The tracer returns only additive tallies (integer counters, float
+    moment sums, and — when ``cfg.score`` — the ``fate_scores``/
+    ``rec_scores`` score-function gradient accumulators; per-lane loop
+    state stays behind), so the reduction is a uniform tree_map.
     """
     return jax.tree_util.tree_map(
         lambda x: jax.lax.psum(x, axis_name), tallies
@@ -79,6 +80,7 @@ def shard_trace(compiled, cfg, mesh, axis_name="photons"):
     cached = _SHARD_CACHE.get(cache_key)
     if cached is not None:
         return cached
+    _enable_persistent_cache()
     n_dev = mesh.devices.size
 
     def per_shard(tables, pos, direction, wav, base_key, offset):
@@ -159,6 +161,7 @@ def shard_trace_device_emit(compiled, cfg, mesh, lanes=None,
     cached = _SHARD_CACHE.get(cache_key)
     if cached is not None:
         return cached
+    _enable_persistent_cache()
     n_dev = mesh.devices.size
     # Without regeneration the wavefront width IS the per-shard photon
     # count, which must therefore be a compile-time constant; with
@@ -257,7 +260,7 @@ def shard_simulate(scene, num_rays, mesh, seed=None, maxsteps=1000,
     accepted for API compatibility and ignored; `record_every` must
     stay 0 (tallies only — use engine.simulate for histories).
     """
-    from pvtrace_tpu.engine.api import _get_tables, compile_scene
+    from pvtrace_tpu.engine.api import _check_budget, _get_tables, compile_scene
     from pvtrace_tpu.engine.emit import emit_bundle
 
     if record_every:
@@ -265,8 +268,6 @@ def shard_simulate(scene, num_rays, mesh, seed=None, maxsteps=1000,
             "shard_simulate is tallies-only (record_every=0); use "
             "engine.simulate for event-log histories."
         )
-    from pvtrace_tpu.engine.api import _check_budget
-
     _check_budget(num_rays, index_offset)
     if compiled is None:
         compiled = compile_scene(scene)
@@ -294,7 +295,7 @@ def shard_simulate(scene, num_rays, mesh, seed=None, maxsteps=1000,
     if compiled.lights_supported:
         per_shard = int(num_rays) // n_dev
         if lanes == "auto":
-            lanes = min(per_shard, 1 << 18)
+            lanes = min(per_shard, AUTO_LANES)
         traced = shard_trace_device_emit(
             compiled, cfg, mesh, lanes=lanes, axis_name=axis_name
         )

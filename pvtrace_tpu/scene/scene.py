@@ -4,7 +4,7 @@ Parity: reference ``pvtrace/scene/scene.py`` — round-robin light
 emission, forward-filtered distance-sorted intersections, and the
 multiprocessing `simulate` entry point with per-worker reseeding. The
 multiprocessing path exists for oracle-tracer compatibility; large runs
-should use ``pvtrace_tpu.engine.simulate`` which traces on the TPU.
+should use ``pvtrace_tpu.engine.simulate`` which traces on the device.
 """
 from __future__ import annotations
 
@@ -157,7 +157,9 @@ class Scene(object):
                 "in each process"
             )
 
-        pool = multiprocessing.Pool(processes=workers)
+        # Spawned, not forked: no worker inherits the parent's device
+        # context (a process holding a GPU must not be forked).
+        pool = multiprocessing.get_context("spawn").Pool(processes=workers)
         try:
             if queue:
                 proxies = [

@@ -11,7 +11,7 @@ setup(
     name="pvtrace-tpu",
     version="0.1.0",
     description=(
-        "TPU-native Monte Carlo photon transport for luminescent solar "
+        "Monte Carlo photon transport for luminescent solar "
         "concentrators and non-imaging optics"
     ),
     packages=find_packages(exclude=("tests",)),

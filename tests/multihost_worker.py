@@ -121,9 +121,6 @@ def main():
     process_id, num_processes, port = (int(a) for a in sys.argv[1:4])
     out_path = sys.argv[4]
 
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
     from pvtrace_tpu.parallel import init_distributed
 
     init_distributed(

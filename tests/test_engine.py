@@ -411,7 +411,7 @@ class TestMaxPathlength:
 def test_many_recorders_exact_vs_log():
     """48 recorders (mixed facet filters, histograms and heatmaps) on
     one node: the vectorized [B, R] tally must match tallies recomputed
-    from the event log exactly — guards the MXU histogram path and the
+    from the event log exactly — guards the matmul histogram path and the
     recorder-axis vectorization at a scale past every other test."""
     scene, lsc = make_lsc_scene()
     faces = [
@@ -474,3 +474,29 @@ def test_stream_and_checkpoint_reject_id_space_overflow():
         engine.simulate_checkpointed(
             scene, 2 ** 32 + 8, checkpoint=None, seed=1
         )
+
+
+@pytest.mark.parametrize(
+    "environ, expect",
+    [
+        ({"JAX_COMPILATION_CACHE_DIR": "/cache/here"}, "/cache/here"),
+        ({}, None),
+        ({"PVTRACE_TPU_CACHE_DIR": "/not/used"}, None),
+    ],
+    ids=["env-set", "env-unset", "old-variable-ignored"],
+)
+def test_compile_cache_dir(environ, expect):
+    """JAX_COMPILATION_CACHE_DIR wins; otherwise one fixed, git-ignored
+    directory in the checkout. No other variable moves it."""
+    import os
+
+    from pvtrace_tpu.engine.api import _CHECKOUT, _cache_dir
+
+    got = _cache_dir(environ)
+    if expect is not None:
+        assert got == expect
+        return
+    assert got == os.path.join(_CHECKOUT, ".xla_cache")
+    assert os.path.isdir(os.path.join(_CHECKOUT, "pvtrace_tpu"))
+    with open(os.path.join(_CHECKOUT, ".gitignore")) as fh:
+        assert ".xla_cache/" in fh.read().split()

@@ -1,7 +1,7 @@
 """Execute the studio frontend (app.js) against a live server.
 
-VERDICT round-4 weak spot: the 1,113-line hand-written WebGL/SSE/gizmo
-frontend was only grep-tested. Here it actually RUNS: ``tests/jsmini``
+The hand-written WebGL/SSE/gizmo frontend was once only grep-tested.
+Here it actually RUNS: ``tests/jsmini``
 interprets ``studio/static/app.js`` inside a browser host
 (``tests/jsdom``) whose ``fetch``/``EventSource`` talk to the real
 stdlib HTTP server — so boot, document apply, the WebGL viewport

@@ -3,7 +3,7 @@
 The guarantee under test: per-photon key streams fold the global photon
 index and the photon's own step counter, so recorder tallies are
 BITWISE identical whether a bundle is traced on one device, sharded
-over a mesh, or run through regeneration at any lane width — the TPU
+over a mesh, or run through regeneration at any lane width — the
 analogue of the reference's scheduling-independent per-ray RNG streams
 (``_kernel.pyx:71-77``, ``tests/test_engine.py:169-176``).
 """
@@ -142,6 +142,26 @@ def test_sharded_device_emit_regen_matches_single_device(setup):
         )
     )()
     assert_tallies_equal(tallies, single, cfg)
+
+
+def test_sharded_outputs_carry_only_tallies(setup):
+    """The per-lane [B, R] `seen` mask is loop state: it is neither
+    returned nor all-reduced across the mesh."""
+    scene, compiled, cfg, tables = setup
+    mesh = make_photon_mesh()
+    key = jax.random.PRNGKey(2)
+    tallies, _ = shard_trace_device_emit(compiled, cfg, mesh, lanes=64)(
+        tables, 800, key
+    )
+    assert "seen" not in tallies
+    assert set(tallies) == {"distinct", "cross", "sums", "bins", "fates"}
+    np.random.seed(1)
+    pos, direction, wav, _src = emit_bundle(scene, 800)
+    tallies, _ = shard_trace(compiled, cfg, mesh)(
+        tables, pos, direction, wav, key
+    )
+    assert "seen" not in tallies
+    assert int(np.asarray(tallies["fates"]).sum()) == 800
 
 
 def test_sharded_score_tallies_match_single_device(setup):
